@@ -1,6 +1,6 @@
-"""mpctsid_tpu — TPU-native MPC + TSID whole-body-control engine for Solo-12-class quadrupeds.
+"""mpctsid_tpu — batched JAX MPC + TSID whole-body-control engine for Solo-12-class quadrupeds.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability contract of the
+A from-scratch JAX/XLA rebuild of the capability contract of the
 ``thomascbrs/mpc-tsid`` reference (convex centroidal-dynamics MPC cascaded into a
 TSID-style inverse-dynamics QP).  The reference mount was empty at survey time
 (SURVEY.md §0), so parity is defined against this repo's own CPU oracle
@@ -10,7 +10,7 @@ Layout (SURVEY.md §7.1):
   model/    Solo-12 parameters, gait definitions (pure data)
   dyn/      JAX rigid-body dynamics: FK, Jacobians, CRBA, RNEA (replaces Pinocchio)
   plan/     gait scheduler, footstep planner, swing polynomials, x_ref rollout
-  qp/       batched dense ADMM QP core + Pallas kernels (replaces OSQP + eiquadprog)
+  qp/       batched dense ADMM QP core (replaces OSQP + eiquadprog)
   mpc/      SRB discretization + condensation -> qp/ (centroidal MPC)
   wbc/      TSID-style task assembly -> qp/ (whole-body control)
   est/      complementary-filter state estimator

@@ -2,7 +2,7 @@
 
 Reference structure being reproduced (SURVEY.md §3.1-3.4): a 1 kHz WBC loop
 with a 50 Hz MPC running in a second process, the WBC consuming the last
-COMPLETED plan.  TPU-native restructuring (SURVEY.md §3 note): the cascade is a
+COMPLETED plan.  Batched restructuring (SURVEY.md §3 note): the cascade is a
 `lax.scan` over MPC periods with an inner `lax.scan` over the `mpc_every` WBC
 ticks — the cadence split is structural, not modulo-tested — and the
 one-solve-stale handoff is a carried array: the plan solved in period p is
@@ -74,6 +74,7 @@ def srb_state(q, v):
     return jnp.concatenate([q[0:3], rpy, R0 @ v[0:3], R0 @ v[3:6]])
 
 
+@f32_matmuls
 def init_controller(model: Solo12Model, cfg: EngineConfig, tree, q0,
                     gait_id, payload=None) -> ControllerState:
     dtype = q0.dtype
@@ -121,7 +122,6 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
                    est_mocap: bool = False,
                    mpc_iters: int = None, mpc_rounds: int = None,
                    wbc_iters: int = None, wbc_rounds: int = None,
-                   mpc_backend: str = None, wbc_backend: str = None,
                    payload=None, payload_known: bool = True):
     """One 20 ms MPC period: plan + MPC solve + mpc_every WBC/plant ticks.
 
@@ -143,12 +143,6 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
     from mpctsid_tpu.est.filter import estimator_update, imu_from_plant
 
     model, cfg, tree = cc.model, cc.cfg, cc.tree
-    # backend choice is part of the config tree (SURVEY.md §5.6); explicit
-    # kwargs (benches, A/B scripts) override the preset
-    if mpc_backend is None:
-        mpc_backend = cfg.solver.mpc_backend
-    if wbc_backend is None:
-        wbc_backend = cfg.solver.wbc_backend
     # solver budgets default from the config tree (SURVEY.md §5.6); explicit
     # kwargs (benches, A/B scripts, parity tests) override
     if mpc_iters is None:
@@ -206,18 +200,9 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
                         for k in range(cfg.mpc.horizon)])
     P, q_lin, A, l, u = build_mpc_qp(model, cfg.mpc, x_srb, x_ref, fsteps,
                                      cont_h, total_mass=ctl_mass)
-    # MPC backend: "auto_mpc" resolves to the G-packed M2 Pallas kernel on
-    # TPU (VMEM-resident M2/A', refinement folded into one precomputed map,
-    # 8 scenarios per grid step; round-5 A/B 121.6 -> 73.0 ms per B=1024
-    # production solve batch vs pallas_vpu — scripts/profile_mpc_solve.py).
-    # Valid because this QP is inequality-only; see qp/admm.py.  The WBC
-    # stage defaults to XLA: its 30-var matrices are too small for the
-    # per-scenario kernel (grid overhead measured 9x slower than XLA's
-    # batched GEMVs) and its equality rows sit outside pallas_m2's domain.
     mpc_sol = admm_solve(P, q_lin, A, l, u,
                          x0=ctl.mpc_warm_x, y0=ctl.mpc_warm_y,
-                         iters=mpc_iters, adapt_rounds=mpc_rounds, rho=0.1,
-                         backend=mpc_backend)
+                         iters=mpc_iters, adapt_rounds=mpc_rounds, rho=0.1)
     # Infeasible/diverged-QP policy (SURVEY.md §5.3): on a bad solve, carry
     # the LAST FEASIBLE plan forward one period (shift columns, hold the
     # tail) instead of adopting garbage, and keep the previous warm start.
@@ -263,7 +248,7 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
         tau_ff, qdd, f_wbc, wbc_sol = solve_wbc(
             tree, cfg.wbc, q_t, v_t, refs,
             iters=wbc_iters, adapt_rounds=wbc_rounds,
-            warm_x=wx, warm_y=wy, backend=wbc_backend,
+            warm_x=wx, warm_y=wy,
             extra_base_inertia=ctl_extra)
         # WBC failure containment (SURVEY.md §5.3): a non-finite/diverged
         # tick falls back to pure joint impedance toward the standing

@@ -2,7 +2,7 @@
 
 Plain frozen dataclasses; every BASELINE.json config (lines 7-11) is a named preset in
 ``PRESETS``.  All timing, weighting, solver and batching knobs live here so the oracle
-and the TPU path consume identical numbers.
+and the device path consume identical numbers.
 """
 
 from __future__ import annotations
@@ -74,39 +74,26 @@ class SolverConfig:
     sigma: float = 1e-6
     alpha: float = 1.6             # over-relaxation
     # In-cascade device solver budgets (fixed trip counts; SURVEY.md §7.3).
-    # MPC 60 iters / 2 adapt rounds (round-5 A/B on the G-packed M2
-    # backend): mean cascade dual residual 4.6e-6 at 60 and at 80 iters —
-    # identical — with +2% throughput at 60.  1 adapt round degrades the
-    # dual residual 1000x (round-4 evidence, 2.9e-3): the rho adaptation
-    # needs at least one refactor.  WBC 40 iters / 3 adapt rounds (was
-    # 60/3): iters 60 -> 40 keeps every gait's closed loop healthy and
-    # costs only 7.7e-4 -> 9.9e-4 Nm warm-sequence parity
-    # (scripts/probe_wbc_budget.py), for ~+1% cascade throughput.  The
-    # third WBC refactorization is LOAD-BEARING and must not be cut: 2
-    # adapt rounds looked fine on trot (+8.9% throughput, upright 1.0) but
-    # collapsed the WALK gait's forward progress 0.079 -> 0.013 m at ANY
-    # iteration count (100/2 still broken, 40/3 fine) — the statically-
-    # stable 3-stance gait needs the better-adapted rho.  Headline-guard
-    # lesson: trot-only A/Bs cannot justify budget cuts; the gait-sweep
-    # closed-loop tests are the gate.  The CONTRACT accuracy number lives
-    # in the named WBC_PARITY_SOLVER f64 tier below, not in the production
-    # loop.  Parity-tier solves (tests, oracle comparisons) pass their own
-    # higher budgets explicitly.
+    # MPC 60 iters / 2 adapt rounds: mean cascade dual residual 4.6e-6 at
+    # 60 and at 80 iters — identical.  1 adapt round degrades the dual
+    # residual 1000x (round-4 evidence, 2.9e-3): the rho adaptation needs
+    # at least one refactor.  WBC 40 iters / 3 adapt rounds (was 60/3):
+    # iters 60 -> 40 keeps every gait's closed loop healthy and costs only
+    # 7.7e-4 -> 9.9e-4 Nm warm-sequence parity (scripts/probe_wbc_budget.py).
+    # The third WBC refactorization is LOAD-BEARING and must not be cut: 2
+    # adapt rounds looked fine on trot (upright 1.0) but collapsed the WALK
+    # gait's forward progress 0.079 -> 0.013 m at ANY iteration count
+    # (100/2 still broken, 40/3 fine) — the statically-stable 3-stance gait
+    # needs the better-adapted rho.  Headline-guard lesson: trot-only A/Bs
+    # cannot justify budget cuts; the gait-sweep closed-loop tests are the
+    # gate.  The CONTRACT accuracy number lives in the named
+    # WBC_PARITY_SOLVER f64 tier below, not in the production loop.
+    # Parity-tier solves (tests, oracle comparisons) pass their own higher
+    # budgets explicitly.
     mpc_iters: int = 60
     mpc_adapt_rounds: int = 2
     wbc_iters: int = 40
     wbc_adapt_rounds: int = 3
-    # device QP backends (qp/admm.py): "auto_mpc" resolves to the G-packed
-    # M2 Pallas kernel on TPU (valid for the inequality-only MPC QP; round-5
-    # A/B: 121.6 -> ~75 ms per B=1024 production solve batch vs pallas_vpu)
-    # and XLA elsewhere; "auto" resolves to the generic pallas_vpu kernel on
-    # TPU; "fused" is the one-pallas_call solver (Ruiz + Cholesky inverse +
-    # iterations in VMEM); "xla" the plain path.  WBC default stays XLA: its
-    # 30-var solves batch well under XLA's GEMMs (measured; see
-    # cascade/engine.py comment), and the equality-row rho boost puts it
-    # outside pallas_m2's validity domain.
-    mpc_backend: str = "auto_mpc"
-    wbc_backend: str = "xla"
     eps_abs: float = 1e-8          # oracle convergence tolerance (CPU only)
     eps_rel: float = 1e-8
     max_iters_oracle: int = 4000

@@ -1,24 +1,26 @@
-"""Multi-chip scenario sharding: Mesh + shard_map over the scenario axis.
+"""Multi-device scenario sharding: Mesh + shard_map over the scenario axis.
 
 The reference has NO distributed backend (single-host CPU; SURVEY.md §2.2);
-the TPU build's parallel dimension is the SCENARIO batch (BASELINE.json:5
-"shards scenario batches across chips with psum/all-gather reductions ... over
-ICI", :11 "32k+ scenarios sharded across N>=2 hosts").  The cascade itself is
+this build's parallel dimension is the SCENARIO batch (BASELINE.json:5
+"shards scenario batches across chips with psum/all-gather reductions",
+:11 "32k+ scenarios sharded across N>=2 hosts").  The cascade itself is
 embarrassingly parallel across scenarios; cross-chip communication is used for
 the global reductions the contract names: batch-wide QP residual norms (global
 convergence monitoring) and Monte-Carlo metric aggregation, via `psum` on the
 scenario axis inside `shard_map`.
 
 Multi-host: call jax.distributed.initialize() before building the mesh; the
-same code path then spans hosts (DCN) and chips (ICI).  Tested on a virtual
-8-device CPU mesh (tests/test_dist.py; SURVEY.md §4.5).
+same code path then spans the processes' devices.  The mesh is 1-D over
+scenarios: the only traffic is the small per-period summaries, so the device
+interconnect (NVLink, all to all on one host) needs no topology-aware layout.
+Tested on a virtual 8-device CPU mesh (tests/test_dist.py; SURVEY.md §4.5).
 
 Deliberate non-feature: NO collectives inside the QP solves themselves.
 Scenarios are independent optimization problems — a cross-chip reduction
 inside the ADMM loop (e.g. globally-pooled rho adaptation) would couple their
 convergence for zero algorithmic benefit and serialize every iteration on the
 slowest chip's collective.  The contract's "psum/all-gather reductions of QP
-residual blocks over ICI" (BASELINE.json:5) is realized where it has value:
+residual blocks" (BASELINE.json:5) is realized where it has value:
 the per-period residual-block summaries below (psum means, pmax worst-case,
 failure counts), which is the global convergence monitor a Monte-Carlo
 operator actually consumes.
@@ -30,7 +32,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from mpctsid_tpu.cascade.engine import CascadeConfigured, cascade_rollout
@@ -72,8 +73,26 @@ def shard_scenarios_multihost(mesh: Mesh, tree):
     return jax.tree_util.tree_map(put, tree)
 
 
+def batched_rollout(cc: CascadeConfigured, n_periods: int,
+                    chunk: int | None = None, **solver_kw):
+    """cascade_rollout over a leading scenario axis: one vmap over the whole
+    batch, or with `chunk` a sequence of vmapped batches of that size
+    (lax.map).  Chunking bounds the compiled program and its working set to
+    a `chunk`-wide batch, whatever the batch: at 8,192 scenarios per H100 in
+    one vmap, XLA spent over five minutes compiling a single reduce fusion.
+
+    fn(ctl_b, plant_b, gait_id_b, v_cmd_b, contact_params_b) ->
+        (ctl_b, plant_b, metrics_b)"""
+    one = functools.partial(cascade_rollout, cc, n_periods=n_periods,
+                            **solver_kw)
+    if chunk is None:
+        return jax.vmap(one)
+    return lambda *args: jax.lax.map(lambda a: one(*a), args,
+                                     batch_size=chunk)
+
+
 def sharded_cascade_rollout(cc: CascadeConfigured, mesh: Mesh, n_periods: int,
-                            **solver_kw):
+                            chunk: int | None = None, **solver_kw):
     """Returns a jitted function running the batched cascade sharded over the
     mesh, with psum-reduced global summaries.
 
@@ -82,20 +101,21 @@ def sharded_cascade_rollout(cc: CascadeConfigured, mesh: Mesh, n_periods: int,
 
     where global_summary holds scenario-axis psum reductions: mean MPC primal
     residual, mean |tau|, and the global count of scenarios whose final base
-    height stayed above 0.1 m (fall detection; SURVEY.md §5.3)."""
+    height stayed above 0.1 m (fall detection; SURVEY.md §5.3).
 
-    vmapped = jax.vmap(
-        functools.partial(cascade_rollout, cc, n_periods=n_periods,
-                          **solver_kw))
+    chunk: each device runs its scenarios in vmapped batches of this size
+    (batched_rollout)."""
+
+    vmapped = batched_rollout(cc, n_periods, chunk, **solver_kw)
 
     @functools.partial(
-        shard_map, mesh=mesh,
+        jax.shard_map, mesh=mesh,
         in_specs=(P(AXIS), P(AXIS), P(AXIS), P(AXIS), P(AXIS)),
         out_specs=(P(AXIS), P(AXIS), P(AXIS), P()),
-        check_rep=False)
+        check_vma=False)
     def run(ctl, plant, gait_id, v_cmd, cparams):
         ctl, plant, metrics = vmapped(ctl, plant, gait_id, v_cmd, cparams)
-        # global reductions over ICI/DCN (BASELINE.json:5)
+        # global reductions across devices (BASELINE.json:5)
         n_local = metrics["mpc_prim_res"].shape[0] * 1.0
         n_total = jax.lax.psum(jnp.asarray(n_local), AXIS)
         summary = {

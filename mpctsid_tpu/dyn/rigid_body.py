@@ -7,10 +7,10 @@ the same conventions:
   q = [p_base(3), quat_xyzw(4), q_joints(12)]  (19,)
   v = [v_base_linear_LOCAL(3), w_base_LOCAL(3), qdot(12)]  (18,)
 
-TPU-native structure: the four legs are IDENTICAL base->HAA->HFE->KFE chains
+Batched structure: the four legs are IDENTICAL base->HAA->HFE->KFE chains
 (model/tree.py), so every per-body recursion here is computed for all four legs
 at once as (4, ...) batched tensor ops — a ~4x smaller XLA graph than a
-13-body loop and wider (VPU-friendlier) ops.  The resulting mass matrix is
+13-body loop and wider ops.  The resulting mass matrix is
 exactly block-structured: dense 6x6 base block, 6x12 base-leg coupling, and a
 block-diagonal 12x12 joint block (legs only couple through the base).
 

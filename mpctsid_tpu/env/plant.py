@@ -93,8 +93,7 @@ def _substep(tree: KinematicTree, st: PlantState, tau, h_dt, p: ContactParams,
     rhs = M @ v + h_dt * (tau_gen - bias
                           + jnp.einsum("fai,fa->i", J, f_el))
     # M and M_eff are SPD with cond ~ 1e2: the blocked Schur inverse
-    # (qp/blockinv.py) is exact to ~cond * eps_f32 here and ~10x faster than
-    # XLA's batched LU solve, which serializes pivot steps on TPU.
+    # (qp/blockinv.py) is exact to ~cond * eps_f32 here and matmul-only.
     M_inv = spd_inverse(M)
     v_imp = spd_inverse(M_eff) @ rhs
 

@@ -45,6 +45,7 @@ from mpctsid_tpu.plan.footsteps import plan_footsteps_horizon
 from mpctsid_tpu.plan.gait import contacts_at, swing_tables
 from mpctsid_tpu.plan.swing import swing_foot_ref
 from mpctsid_tpu.qp.admm import admm_solve
+from mpctsid_tpu.utils import f32_matmuls
 from mpctsid_tpu.wbc.tsid import WbcRefs, solve_wbc
 
 F32 = jnp.float32
@@ -57,6 +58,7 @@ class HostController:
     # [tick, phase, wbc_ok, tau_0..tau_11]
     TELEM_LEN = 15
 
+    @f32_matmuls
     def __init__(self, model: Solo12Model, cfg: EngineConfig,
                  q0: np.ndarray, async_mpc: bool = False,
                  mpc_iters: int = None, mpc_rounds: int = None,
@@ -75,6 +77,7 @@ class HostController:
         self.gid = jnp.int32(GAIT_IDS[cfg.gait])
         self.async_mpc = async_mpc
         self.k = 0                     # WBC tick counter
+        self.n_plans = 0               # solved plans the planner published
         self.phase = 0                 # gait phase (MPC periods)
         self.horizon = cfg.mpc.horizon
 
@@ -105,11 +108,15 @@ class HostController:
         self.wbc_warm = (jnp.zeros(30, F32), jnp.zeros(50, F32))
 
         # --- jitted device programs (donated warm starts) -----------------
+        # Each is wrapped at its jit boundary by f32_matmuls, like every
+        # public entry point (utils/__init__.py); the host-side eager ops in
+        # compute() run under the same policy.
         # The ok-selection (keep the previous warm start on a failed solve)
         # happens IN-GRAPH so the caller can unconditionally adopt the
         # returned buffers: with donation, the passed-in warm arrays are
         # invalid after the call, so the old host-side `if ok:` pattern
         # would hand a donated buffer back to the next tick.
+        @f32_matmuls
         @functools.partial(jax.jit, donate_argnums=(4, 5))
         def _mpc(x_srb, feet, phase, v_cmd, warm_x, warm_y):
             fsteps, next_td = plan_footsteps_horizon(
@@ -123,12 +130,13 @@ class HostController:
                                              fsteps, cont)
             sol = admm_solve(P, q_lin, A, l, u, x0=warm_x, y0=warm_y,
                              iters=mpc_iters, adapt_rounds=mpc_rounds,
-                             rho=0.1, backend=cfg.solver.mpc_backend)
+                             rho=0.1)
             wx = jnp.where(sol.ok, sol.x, warm_x)
             wy = jnp.where(sol.ok, sol.y, warm_y)
             return (sol.x.reshape(self.horizon, 4, 3), wx, wy, sol.ok,
                     next_td)
 
+        @f32_matmuls
         @functools.partial(jax.jit, donate_argnums=(7, 8))
         def _wbc(q, v, contacts, f_used, pos, vel, acc, warm_x, warm_y):
             refs = WbcRefs(
@@ -140,13 +148,13 @@ class HostController:
             tau, qdd, f, sol = solve_wbc(self.tree, cfg.wbc, q, v, refs,
                                          iters=wbc_iters,
                                          adapt_rounds=wbc_rounds,
-                                         warm_x=warm_x, warm_y=warm_y,
-                                         backend=cfg.solver.wbc_backend)
+                                         warm_x=warm_x, warm_y=warm_y)
             tau = jnp.clip(tau, -cfg.wbc.tau_max, cfg.wbc.tau_max)
             wx = jnp.where(sol.ok, sol.x, warm_x)
             wy = jnp.where(sol.ok, sol.y, warm_y)
             return tau, qdd, wx, wy, sol.ok
 
+        @f32_matmuls
         @jax.jit
         def _swing_ref(phase, t_frac, liftoff, touchdown):
             back, fwd, dur, _ = swing_tables(self.gid, phase)
@@ -193,6 +201,7 @@ class HostController:
             self.mpc_warm = (wx, wy)
             if bool(ok):
                 self._buf.publish(np.asarray(plan).reshape(-1), phase)
+                self.n_plans += 1
             # a failed solve publishes nothing: the consumer keeps the last
             # feasible plan (SURVEY.md §5.3)
 
@@ -202,6 +211,7 @@ class HostController:
             self._planner.join(timeout=2.0)
 
     # --- the 1 kHz surface --------------------------------------------------
+    @f32_matmuls
     def compute(self, q: np.ndarray, v: np.ndarray,
                 v_cmd: np.ndarray | None = None) -> np.ndarray:
         """One WBC tick from measured state; returns 12 joint torques."""

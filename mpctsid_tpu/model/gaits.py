@@ -4,7 +4,7 @@ The reference keeps a variable-length gait matrix (rows = phases with a duration
 column, cols = 4 feet in {0,1}) and rolls it one step per MPC period
 (SURVEY.md §2.1 "Gait scheduler"; gait set trot/walk/bound/static from
 BASELINE.json:8).  A row-compressed variable-length matrix is hostile to vmap, so
-the TPU-native representation is the *expanded* periodic table instead: a fixed
+the device representation is the *expanded* periodic table instead: a fixed
 (GAIT_PERIOD, 4) 0/1 array at MPC-step resolution (dt = 20 ms), indexed modulo the
 gait period by a per-scenario phase counter.  Rolling is an integer increment;
 gathering the horizon-16 contact matrix is a take along axis 0.  All gaits share

@@ -134,9 +134,8 @@ def build_mpc_qp(model: Solo12Model, cfg: MpcConfig, x0, x_ref, feet, contacts,
 
     # condensation as a scan over the horizon: each step is ONE row-level
     # matmul (12,12)@(12,12N) instead of k block-level (12,12)@(12,12)
-    # matmuls — 16 batched ops total, not N(N+1)/2 = 136 (the unrolled block
-    # form measured 33 ms per period at B=1024, dominated by op-launch/HBM
-    # latency of tiny matmuls).
+    # matmuls — 16 batched ops total, not N(N+1)/2 = 136 tiny matmuls, each
+    # its own launch in the unrolled block form.
     def cond_step(carry, inp):
         Sx_p, Sc_p, Su_p = carry                        # (12,12),(12,),(12,12N)
         A_k, B_k, c_k, k = inp

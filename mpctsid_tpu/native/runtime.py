@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ real-time runtime (native/rt_runtime.cc).
 
-The compute path is JAX/XLA on TPU; this native layer is the host runtime the
+The compute path is JAX/XLA on the accelerator; this native layer is the host runtime the
 reference implemented with Python multiprocessing + shared memory (the
 MPC_Wrapper one-solve-stale handoff) and what a real-robot deployment needs for
 the hard 1 kHz loop (SURVEY.md §2.2, §3.2).  Built on demand with g++ (this

@@ -3,15 +3,15 @@
 Solves   min_x 1/2 x'Px + q'x   s.t.  l <= Ax <= u
 with the OSQP operator splitting (same algorithm as oracle/qp.py, which is the
 float64 reference for this module; SURVEY.md §2.1 native table rows "OSQP" and
-"eiquadprog").  TPU-native choices:
+"eiquadprog").  Batched-accelerator choices:
 
   * FIXED iteration count (SURVEY.md §7.3 "fixed-iteration ADMM"): no data-
     dependent control flow, so the whole solve jits into one fused program and
     `vmap`s across thousands of scenarios in lockstep (BASELINE.json:5).
   * The KKT matrix K = P + sigma I + A' diag(rho) A is inverted ONCE per adapt
-    round (diagonal-pivoted blocked Schur elimination, qp/blockinv.py) and
-    applied as a dense inverse: every ADMM iteration is then two batched
-    matmuls + a clip — pure MXU + VPU work.  (n <= 192, so K^-1 is small;
+    round (blocked Cholesky + triangular inverse, qp/blockinv.py) and
+    applied as a dense inverse: every ADMM iteration is then batched
+    matrix-vector products + a clip.  (n <= 192, so K^-1 is small;
     Newton-Schulz / LU / Cholesky paths are kept for comparison.)
   * Ruiz equilibration + cost scaling in-graph (f32 conditioning; §7.3
     "Numerics").
@@ -59,8 +59,7 @@ jax.tree_util.register_dataclass(
 def _ns_inverse(K, x0=None, iters: int = 16):
     """Newton-Schulz iteration for K^-1 of an SPD matrix: X <- X (2I - K X).
 
-    Matmul-only, so it runs at MXU speed where LU/triangular solves serialize
-    on TPU.  Cold init X0 = I / ||K||_inf (valid for SPD K); warm init from a
+    Matmul-only: no pivoting or triangular solves.  Cold init X0 = I / ||K||_inf (valid for SPD K); warm init from a
     previous inverse (adapt rounds change K mildly) needs ~1/3 the iterations.
     Quadratic convergence: residual ||I - XK|| squares each step."""
     n = K.shape[0]
@@ -88,9 +87,8 @@ def ruiz_equilibrate(P, q, A, l, u, iters: int = 8):
     max_i |c D_i P_ij D_j| = c D_j max_i(D_i |P_ij|) — then applies the
     accumulated scaling ONCE at the end.  The previous form rescaled the
     full (n,n)+(m,n) matrices every round: at B=1024/n=192 that is ~13 GB
-    of loop-carried HBM read+write traffic and was 15% of the whole MPC
-    solve (scripts/profile_mpc_solve.py: 20 ms of 133).  Read-only
-    reductions halve the traffic and drop the writes.  Same scales up to
+    of loop-carried read+write memory traffic.  Read-only reductions halve
+    the traffic and drop the writes.  Same scales up to
     fp reduction order; same guards (all-zero rows keep scale 1)."""
 
     def body(_, carry):
@@ -131,8 +129,7 @@ def ruiz_equilibrate(P, q, A, l, u, iters: int = 8):
 
 @f32_matmuls
 @partial(jax.jit, static_argnames=("iters", "mode", "equilibrate_iters",
-                                   "polish_kkt", "adapt_rounds", "backend",
-                                   "backend_interpret",
+                                   "polish_kkt", "adapt_rounds",
                                    "rho", "sigma", "alpha", "rho_eq_scale"))
 def admm_solve(P, q, A, l, u,
                x0=None, y0=None,
@@ -145,66 +142,13 @@ def admm_solve(P, q, A, l, u,
                equilibrate_iters: int = 8,
                polish_kkt: bool = False,
                adapt_rounds: int = 1,
-               backend: str = "xla",
-               backend_interpret: bool = False,
                status_tol: float = 0.05) -> QPSolution:
-    """Fixed-iteration OSQP-style ADMM.  vmap-able; see module docstring.
-
-    backend="auto" resolves to the Pallas VPU iteration kernel on TPU (VMEM-
-    resident matrices + broadcast-multiply-reduce matvecs; measured 276 -> 192
-    ms per B=1024 100-iter MPC solve batch vs XLA and 224 ms for the MXU-dot
-    kernel) and to plain XLA elsewhere (CPU/interpret parity path).
-    Resolution happens at trace time, so the choice is baked into the
-    compiled program.
-
-    backend="pallas_m2" (the MPC production backend): folds the iterative-
-    refinement step into one precomputed map M2 = 2K^-1 - K^-1 K K^-1 (two
-    batched MXU GEMMs per adapt round) and runs a G-packed Pallas kernel
-    with 3 multiply-reduce ops per iteration instead of 5.  SPECIFIED FOR
-    INEQUALITY-ONLY QPs (the MPC stage): with equality rows the 1e3 rho
-    boost pushes cond(K) to ~1e4 and the explicit M2 product's rounding
-    (relative to ||K|| ||K^-1||) loses the accuracy the sequential residual
-    form keeps (measured 1e-3 solution drift with eq rows vs 1e-6 without —
-    tests/test_pallas_admm.py _qp_for).  The WBC QP (equality-constrained)
-    must use "xla" or the other pallas backends.
-    """
-    if backend == "auto":
-        backend = "pallas_vpu" if jax.default_backend() == "tpu" else "xla"
-    elif backend == "auto_mpc":
-        # the MPC-stage default: the QP is inequality-only by construction
-        # (friction pyramid + force bounds), which is exactly pallas_m2's
-        # validity domain (see the backend note above / in the docstring)
-        backend = "pallas_m2" if jax.default_backend() == "tpu" else "xla"
+    """Fixed-iteration OSQP-style ADMM.  vmap-able; see module docstring."""
     n = P.shape[0]
     m = A.shape[0]
     dtype = P.dtype
 
     P0, q0, A0, l0, u0 = P, q, A, l, u
-
-    if backend == "fused":
-        # One pallas_call per solve: Ruiz + K assembly + blocked-Cholesky
-        # inverse + all iterations + rho adaptation fused on VMEM-resident
-        # data (qp/pallas_kernels.py _admm_fused_kernel).  The XLA path of a
-        # WBC-sized solve is ~320 tiny device ops and is launch/copy bound.
-        from mpctsid_tpu.qp.pallas_kernels import admm_solve_fused
-        eqf = (((u0 - l0) < 1e-9)).astype(dtype)
-        xs, ys, D, E, c = admm_solve_fused(
-            P, q, A, l, u, eqf,
-            jnp.zeros(n, dtype) if x0 is None else x0.astype(dtype),
-            jnp.zeros(m, dtype) if y0 is None else y0.astype(dtype),
-            iters=iters, adapt_rounds=adapt_rounds,
-            equilibrate_iters=equilibrate_iters, rho0=rho, sigma=sigma,
-            alpha=alpha, rho_eq_scale=rho_eq_scale, inf=INF,
-            interpret=backend_interpret)
-        x = D * xs
-        y = E * ys / c
-        z_u = jnp.clip(A0 @ x, l0, u0)
-        prim = jnp.max(jnp.abs(A0 @ x - z_u)) if m else jnp.zeros((), dtype)
-        dual = jnp.max(jnp.abs(P0 @ x + q0 + A0.T @ y))
-        ok = (jnp.all(jnp.isfinite(x)) & jnp.isfinite(prim)
-              & (prim < status_tol))
-        return QPSolution(x=x, y=y, z=z_u, prim_res=prim, dual_res=dual,
-                          ok=ok)
 
     P, q, A, l, u, D, E, c = ruiz_equilibrate(P, q, A, l, u, equilibrate_iters)
 
@@ -214,8 +158,6 @@ def admm_solve(P, q, A, l, u,
     x = jnp.zeros(n, dtype) if x0 is None else (x0 / D).astype(dtype)
     y = jnp.zeros(m, dtype) if y0 is None else (y0 * c / E).astype(dtype)
     z = jnp.clip(A @ x, l, u)
-
-    prev_inv = [None]
 
     def run_block(rho_s, x, z, y, n_iters):
         """n_iters ADMM iterations at scalar rho (with the eq-row boost)."""
@@ -233,10 +175,8 @@ def admm_solve(P, q, A, l, u,
             # for both QP stages; the modes below are reference/fallbacks.
             K_inv = spd_inverse_chol(K, ns_steps=1)
         elif mode == "inv":
-            # Newton-Schulz inverse: matmul-only (MXU-friendly), unlike the
-            # LU-based jnp.linalg.inv whose triangular solves serialize on TPU
-            # (measured 130 ms vs ~10 ms for B=1024 at n=192).  Warm-started
-            # from the previous adapt-round's inverse when available.
+            # Newton-Schulz inverse: matmul-only, unlike the LU-based
+            # jnp.linalg.inv.
             # VALID ONLY for cond(K) <~ 1e3 in f32 (no equality-boosted rows):
             # the MPC QP qualifies; the WBC QP (eq rows, cond ~ 1e5) must use
             # mode="exact_inv" — NS diverges there.  Cold-start every round:
@@ -257,49 +197,11 @@ def admm_solve(P, q, A, l, u,
             def k_solve(rhs):  # noqa: F811
                 # one iterative-refinement step: squares the explicit
                 # inverse's relative error (~1e-2 at cond 1e5 -> ~1e-4) for
-                # two extra matmuls — still MXU-only, and what closes the
-                # parity gap vs an LU solve on the WBC ridge KKT
-                # (scripts/diag_kinv, scripts/diag_wbc_mode).  The Pallas
-                # kernel performs the identical refinement so both backends
-                # share a fixed point.
+                # two extra matmuls, and what closes the parity gap vs an LU
+                # solve on the WBC ridge KKT (scripts/diag_kinv,
+                # scripts/diag_wbc_mode).
                 x_a = K_inv @ rhs
                 return x_a + K_inv @ (rhs - K @ x_a)
-
-        if backend == "pallas_m2" and mode in ("blockinv", "inv",
-                                               "exact_inv"):
-            # Fold the refinement into ONE precomputed map:
-            #   x_t = x_a + K_inv (rhs - K x_a) = (2 K_inv - K_inv K K_inv) rhs
-            # M2 is computed here as two batched MXU GEMMs (vmap makes them
-            # (B, n, n) batch matmuls) so the Pallas kernel streams one
-            # matrix instead of two and runs 3 multiply-reduce ops per
-            # iteration instead of 5 — the iteration is latency-bound at
-            # n=192 (scripts/profile_mpc_solve.py).  Same fixed point as
-            # every other backend: identical linear map, fp order differs.
-            from mpctsid_tpu.qp.pallas_kernels import admm_iterate_m2
-            KKi = K @ K_inv
-            M2 = 2.0 * K_inv - K_inv @ KKi
-            return admm_iterate_m2(M2, A, q, l, u, rho_vec, x, z, y,
-                                   iters=n_iters, sigma=sigma, alpha=alpha,
-                                   interpret=backend_interpret)
-
-        if backend in ("pallas", "pallas_vpu", "pallas_packed") and mode in (
-                "blockinv", "inv", "exact_inv"):
-            # VMEM-resident iteration kernel (qp/pallas_kernels.py): each
-            # scenario's K^-1, K and A are read from HBM once per block
-            # instead of once per iteration.  "pallas_vpu" additionally
-            # replaces the M=1 MXU dots (weight-load bound) with VPU
-            # broadcast-multiply-reductions over the symmetric K/K_inv;
-            # "pallas_packed" further packs G scenarios per grid step via
-            # custom_vmap (best for tiny WBC-sized matrices).
-            from mpctsid_tpu.qp.pallas_kernels import (admm_iterate,
-                                                       admm_iterate_packed,
-                                                       admm_iterate_vpu)
-            fn = {"pallas": admm_iterate,
-                  "pallas_vpu": admm_iterate_vpu,
-                  "pallas_packed": admm_iterate_packed}[backend]
-            return fn(K_inv, K, A, q, l, u, rho_vec, x, z, y,
-                      iters=n_iters, sigma=sigma, alpha=alpha,
-                      interpret=backend_interpret)
 
         def body(_, carry):
             x, z, y = carry
@@ -368,7 +270,7 @@ def _polish(P, q, A, l, u, x, y, eq,
     nu_i = 0 exactly for inactive constraints.  Falls back to the ADMM iterate
     per-problem when the polished point is infeasible or the KKT residual got
     worse (mirrors oracle/qp.py _polish acceptance test).  One batched dense
-    solve -> MXU work; replaces hundreds of ADMM iterations of tail accuracy."""
+    solve replaces hundreds of ADMM iterations of tail accuracy."""
     n = P.shape[0]
     m = A.shape[0]
     dtype = P.dtype

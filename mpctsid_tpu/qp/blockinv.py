@@ -1,12 +1,11 @@
-"""MXU-friendly SPD matrix inversion: blocked Gauss-Jordan (sweep operator).
+"""Matmul-only SPD matrix inversion: blocked Gauss-Jordan (sweep operator).
 
 Why not jnp.linalg.inv / cholesky: XLA's batched LU and triangular solves
-serialize scalar pivot steps on TPU — measured 9.1 ms for B=1024 inversions of
-the 30x30 WBC KKT matrix, which made the factorization 100% of the WBC solve
-cost (the 60 ADMM iterations around it are ~2 ms).  Blocked Gauss-Jordan does
-the same O(n^3) work as ~n/b matmul-shaped pivot steps, so the batch dimension
-keeps the MXU busy and the sequential depth drops from n scalar pivots to n/b
-block pivots.
+run n scalar pivot steps in sequence.  Blocked Gauss-Jordan does the same
+O(n^3) work as ~n/b matmul-shaped pivot steps, so the batch dimension feeds
+batched matmuls and the sequential depth drops from n scalar pivots to n/b
+block pivots.  Whether this beats batched Cholesky on a given device is a
+measurement (ROADMAP 1.4), not a property of the algorithm.
 
 Why no pivoting is safe: every pivot block of an SPD matrix is SPD (principal
 submatrices of SPD matrices are SPD, and the trailing matrix after a block
@@ -21,7 +20,7 @@ each step inverts one (b, b) pivot (recursively, down to a closed-form 2x2 /
 matmuls.  Everything is static-shaped and vmaps/batches cleanly.
 
 Replaces: reference OSQP's AMD + sparse LDL' factorization and eiquadprog's
-dense decompositions (SURVEY.md §2.1 native-component table) — on TPU the
+dense decompositions (SURVEY.md §2.1 native-component table) — here the
 factorization is replaced by an explicit inverse so each ADMM iteration is a
 pure matmul (qp/admm.py).
 """
@@ -85,7 +84,7 @@ def spd_inverse(K):
     """Explicit inverse of a symmetric positive-definite matrix (n, n).
 
     Recursive blocked Schur elimination with closed-form 1/2/3 base cases;
-    matmul-only, so batched use (vmap) maps to MXU batched GEMMs instead of
+    matmul-only, so batched use (vmap) maps to batched GEMMs instead of
     XLA's serialized LU pivots.  Use for the QP KKT matrices and the 18x18
     mass matrices (all SPD by construction)."""
     n = K.shape[0]
@@ -105,17 +104,16 @@ def chol_blocked(K):
 
     [[K11, K21'], [K21, K22]] -> [[L11, 0], [K21 L11^-T, chol(S)]] with
     S = K22 - L21 L21'.  Each level is two matmul-shaped updates plus two
-    half-size recursions, so the batched (vmap) form runs as MXU GEMMs with
-    sequential depth log2(n) — against n serialized pivot steps in XLA's
-    batched `cholesky`/LU lowering on TPU.  Unpivoted Cholesky is
+    half-size recursions, so the batched (vmap) form runs as batched GEMMs
+    with sequential depth log2(n) — against n serialized pivot steps in
+    XLA's batched `cholesky`/LU lowering.  Unpivoted Cholesky is
     backward-stable for SPD input (unlike the raw Schur-inverse recursion
     above, which loses ~cond(K) accuracy when small diagonals are eliminated
     first), so this is the production path for the QP KKT matrices.
 
     Closed-form 2x2 / 3x3 bases (round 5): the recursion below size 3 used
     to spawn ~12 ops per size-3 leaf (and a 192x192 factorization has 64 of
-    them) — the small-op tail made the whole inverse launch-bound at 2.6
-    TFLOP/s (scripts/profile_mpc_solve.py kinv stage).  The explicit
+    them) — the small-op tail made the whole inverse launch-bound.  The explicit
     formulas are a handful of elementwise ops each.  Pivot floor 1e-10 as
     in the n == 1 base."""
     n = K.shape[0]
@@ -166,16 +164,13 @@ def tri_lower_inverse(L):
     Matmul-only, depth log2(n); cond(L) = sqrt(cond(K)) for a Cholesky
     factor, which is what buys the f32 stability of `spd_inverse_chol`.
 
-    Base case n <= 12 (round 5; was 24 — the 24 base measured ~8% SLOWER on
-    the B=1024 WBC n=30 solve chain than 12, while 192-var stays neutral):
+    Base case n <= 12 (round 5; was 24):
     L = D (I + N) with N strictly lower
     NILPOTENT (N^n = 0), so inv(I + N) = prod_j (I + M^(2^j)) with M = -N —
     an EXACT log-depth product of ~2 ceil(log2(n)) matmuls, then a diagonal
     column scale.  The old recursion spawned ~45 ops (matmuls + concats)
     per size-12 subtree and dominated the factorization's launch-bound
-    cost; the product form is ~10 uniform batched matmuls.  Same math as
-    the fused kernel's _btri_base (qp/pallas_kernels.py), which has used it
-    at n <= 8 since round 4."""
+    cost; the product form is ~10 uniform batched matmuls."""
     n = L.shape[0]
     if n == 1:
         return 1.0 / L
@@ -209,7 +204,7 @@ def spd_inverse_chol(K, ns_steps: int = 1):
     recursion; `ns_steps` Newton-Schulz corrections X <- X (2I - K X) then
     quadratically tighten it.  This is the default factorization for both QP
     stages (qp/admm.py) — replaces OSQP's sparse LDL' and eiquadprog's dense
-    decompositions (SURVEY.md §2.1) with an explicit MXU-friendly inverse.
+    decompositions (SURVEY.md §2.1) with an explicit matmul-only inverse.
 
     Symmetric Jacobi pre-scaling Ks = S K S, S = diag(K)^-1/2, comes first:
     the WBC KKT's conditioning is diagonal-scale-driven (1e6 swing-force

@@ -1,6 +1,6 @@
-"""Double-float (df32) building blocks for f32-only TPU tail accuracy.
+"""Double-float (df32) building blocks for f32 tail accuracy.
 
-TPU has no fast f64.  The polish step's iterative refinement needs the KKT
+The solver runs in f32.  The polish step's iterative refinement needs the KKT
 residual  r = b - K x  to much better than plain f32: at the solution, r is
 ~1e-6 while the individual products K_ij x_j are O(1), so a plain f32 matvec
 leaves an accumulation-error floor of ~n*eps*|terms| ~ 1e-5..1e-4 — which
@@ -16,12 +16,12 @@ Classic error-free transformations fix this in pure f32:
 
 `residual_matvec` combines both: the returned  b - K x  is accurate to
 ~eps*|r| + eps^2*n*|terms| — effectively f64-quality — using only f32 adds
-and multiplies (VPU work).  Cost: one scan over column chunks; used a few
+and multiplies.  Cost: one scan over column chunks; used a few
 times per solve in the polish tail only, so throughput impact is nil.
 
 No reference counterpart (OSQP polishes in native f64; SURVEY.md §2.1 row
-"OSQP" — this module is how the TPU build reaches the same tail accuracy
-without f64 hardware).
+"OSQP" — this module is how the f32 build reaches the same tail accuracy
+without leaving f32).
 """
 
 from __future__ import annotations

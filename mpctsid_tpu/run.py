@@ -4,16 +4,17 @@
 
     python -m mpctsid_tpu.run --gait trot --vx 0.3 --seconds 2
     python -m mpctsid_tpu.run --gait walk --profile weave --estimator \
-        --jsonl /tmp/run.jsonl --plot /tmp/run.png --batch 16
+        --jsonl run.jsonl --plot run.png --batch 16
 
 Metrics are accumulated in-scan (one device->host transfer per run,
 SURVEY.md §5.5) and optionally emitted as JSONL per MPC period plus a
-matplotlib summary plot."""
+matplotlib summary plot.  `main` returns a summary dict (compile and run
+seconds, final pose, attitude and velocity guards); the process exits 1 if
+the robot fell."""
 
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import sys
 import time
@@ -24,7 +25,7 @@ import jax
 import jax.numpy as jnp
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--gait", default="trot",
                    choices=["trot", "walk", "bound", "static", "pace"])
@@ -41,11 +42,16 @@ def main(argv=None):
     p.add_argument("--mu", type=float, default=0.7, help="ground friction")
     p.add_argument("--jsonl", default=None, help="write per-period metrics")
     p.add_argument("--plot", default=None, help="write a summary plot PNG")
+    p.add_argument("--repeat", type=int, default=1,
+                   help="timed executions of the compiled rollout")
     p.add_argument("--cpu", action="store_true", help="force CPU")
     args = p.parse_args(argv)
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from mpctsid_tpu.utils import configure_compile_cache, device_info
+    configure_compile_cache()
+    print(json.dumps({"device": device_info()}), file=sys.stderr)
 
     from mpctsid_tpu import command
     from mpctsid_tpu.cascade import (CascadeConfigured, cascade_rollout,
@@ -82,8 +88,12 @@ def main(argv=None):
     cp = ContactParams(kp_n=cp.kp_n, kd_n=cp.kd_n, kp_t=cp.kp_t,
                        kd_t=cp.kd_t, mu=jnp.asarray(args.mu, jnp.float32))
 
-    single = functools.partial(cascade_rollout, cc, n_periods=n_periods,
+    def single(ctl, plant, gid, v, cp, est):
+        return cascade_rollout(cc, ctl, plant, gid, v, cp,
+                               n_periods=n_periods, est=est,
                                use_estimator=args.estimator)
+
+    v_seq_d = jnp.asarray(v_seq)
     if args.batch > 1:
         rep = lambda x: jnp.broadcast_to(x, (args.batch,) + x.shape)
         ctl = jax.tree_util.tree_map(rep, ctl)
@@ -91,32 +101,43 @@ def main(argv=None):
         est = jax.tree_util.tree_map(rep, est) if est is not None else None
         cp = jax.tree_util.tree_map(rep, cp)
         gid = jnp.full((args.batch,), gid, jnp.int32)
-        vs = jnp.broadcast_to(jnp.asarray(v_seq),
-                              (args.batch,) + v_seq.shape)
+        v_seq_d = rep(v_seq_d)
         est_ax = 0 if est is not None else None
-        run = jax.jit(jax.vmap(single, in_axes=(0, 0, 0, 0, 0, est_ax)))
-        t0 = time.time()
-        ctl, plant, metrics = run(ctl, plant, gid, vs, cp, est)
-        x = np.asarray(metrics["x_srb"])[0]
-        metrics_np = {k: np.asarray(v)[0] for k, v in metrics.items()}
-    else:
-        run = jax.jit(single)
-        t0 = time.time()
-        ctl, plant, metrics = run(ctl, plant, gid, jnp.asarray(v_seq), cp,
-                                  est=est)
-        x = np.asarray(metrics["x_srb"])
-        metrics_np = {k: np.asarray(v) for k, v in metrics.items()}
-    wall = time.time() - t0
+        single = jax.vmap(single, in_axes=(0, 0, 0, 0, 0, est_ax))
+    call_args = (ctl, plant, gid, v_seq_d, cp, est)
+    t0 = time.perf_counter()
+    run = jax.jit(single).lower(*call_args).compile()
+    compile_s = time.perf_counter() - t0
+    run_s = []
+    for _ in range(max(args.repeat, 1)):
+        t0 = time.perf_counter()
+        _, _, metrics = jax.block_until_ready(run(*call_args))
+        run_s.append(time.perf_counter() - t0)
+    metrics_np = {k: np.asarray(v) for k, v in metrics.items()}
+    if args.batch > 1:
+        metrics_np = {k: v[0] for k, v in metrics_np.items()}
+    x = metrics_np["x_srb"]
 
-    fell = bool((x[:, 2] < 0.12).any())
+    n_ss = min(16, n_periods)
+    summary = {
+        "gait": args.gait, "profile": args.profile, "periods": n_periods,
+        "batch": args.batch, "estimator": args.estimator,
+        "compile_s": compile_s, "run_s": run_s,
+        "final_pos": [float(x[-1, 0]), float(x[-1, 1])],
+        "min_height": float(x[:, 2].min()),
+        "max_abs_roll_pitch": float(np.abs(x[:, 3:5]).max()),
+        "mean_vx": float(x[n_periods // 3:, 6].mean()),
+        "vx_ss": float(x[-n_ss:, 6].mean()),
+        "fell": bool((x[:, 2] < 0.12).any()),
+    }
+    ticks = args.batch * n_periods * cfg.cascade.mpc_every
     print(f"gait={args.gait} profile={args.profile} periods={n_periods} "
           f"batch={args.batch} estimator={args.estimator}")
-    print(f"  wall {wall:.1f}s (incl. compile) | "
-          f"{args.batch * n_periods * cfg.cascade.mpc_every / wall:,.0f} "
-          f"ticks/s")
+    print(f"  compile {compile_s:.1f}s | run {run_s[-1]:.3f}s | "
+          f"{ticks / run_s[-1]:,.0f} ticks/s")
     print(f"  final pos ({x[-1, 0]:+.3f}, {x[-1, 1]:+.3f}) m | "
-          f"height {x[-1, 2]:.3f} m | mean vx {x[n_periods // 3:, 6].mean():+.3f} "
-          f"(cmd {args.vx}) | fell={fell}")
+          f"height {x[-1, 2]:.3f} m | mean vx {summary['mean_vx']:+.3f} "
+          f"(cmd {args.vx}) | fell={summary['fell']}")
 
     if args.jsonl:
         with open(args.jsonl, "w") as f:
@@ -154,8 +175,8 @@ def main(argv=None):
         fig.savefig(args.plot, dpi=110)
         print(f"  wrote {args.plot}")
 
-    return 1 if fell else 0
+    return summary
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(1 if main()["fell"] else 0)

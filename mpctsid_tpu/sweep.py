@@ -4,13 +4,13 @@ VERDICT.md round-1 missing #4).
 A sweep evaluates `total` scenarios — per-scenario gait, velocity command and
 ground friction drawn deterministically from (seed, scenario_index) — in
 device-batch chunks.  After every chunk the sweep state (scenario cursor +
-seed + accumulated per-scenario metrics) is serialized via flax msgpack, so a
+seed + accumulated per-scenario metrics) is serialized as a numpy .npz, so a
 preempted sweep resumes from the cursor and produces BITWISE the results of an
 uninterrupted run (tests/test_sweep.py).
 
 CLI:
     python -m mpctsid_tpu.sweep --total 4096 --chunk 512 \
-        --ckpt /tmp/sweep.msgpack --jsonl /tmp/sweep_results.jsonl
+        --ckpt sweep_ckpt.npz --jsonl sweep_results.jsonl
 
 The reference has no counterpart (a control loop has no training state); this
 is the new framework's Monte-Carlo robustness-evaluation harness
@@ -22,6 +22,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import io
 import json
 import os
 import sys
@@ -46,22 +47,21 @@ class SweepState:
     metrics: dict                  # key -> np.ndarray (total,)
 
     def to_bytes(self) -> bytes:
-        from flax import serialization
-        return serialization.msgpack_serialize({
-            "seed": self.seed, "total": self.total, "cursor": self.cursor,
-            "n_periods": self.n_periods,
-            "metrics": {k: np.asarray(v) for k, v in self.metrics.items()},
-        })
+        buf = io.BytesIO()
+        np.savez(buf, seed=self.seed, total=self.total, cursor=self.cursor,
+                 n_periods=self.n_periods,
+                 **{"metric_" + k: np.asarray(v)
+                    for k, v in self.metrics.items()})
+        return buf.getvalue()
 
     @classmethod
     def from_bytes(cls, data: bytes) -> "SweepState":
-        from flax import serialization
-        d = serialization.msgpack_restore(data)
-        return cls(seed=int(d["seed"]), total=int(d["total"]),
-                   cursor=int(d["cursor"]), n_periods=int(d["n_periods"]),
-                   # np.array (copy): msgpack_restore yields read-only views
-                   metrics={k: np.array(v)
-                            for k, v in d["metrics"].items()})
+        with np.load(io.BytesIO(data)) as d:
+            return cls(seed=int(d["seed"]), total=int(d["total"]),
+                       cursor=int(d["cursor"]),
+                       n_periods=int(d["n_periods"]),
+                       metrics={k[len("metric_"):]: d[k] for k in d.files
+                                if k.startswith("metric_")})
 
     @classmethod
     def fresh(cls, seed: int, total: int, n_periods: int) -> "SweepState":
@@ -200,7 +200,7 @@ def main(argv=None):
     p.add_argument("--chunk", type=int, default=256)
     p.add_argument("--periods", type=int, default=25)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--ckpt", default="/tmp/mpctsid_sweep.msgpack")
+    p.add_argument("--ckpt", default="sweep_ckpt.npz")
     p.add_argument("--jsonl", default=None,
                    help="write per-scenario results at the end")
     p.add_argument("--resume", action="store_true",
@@ -210,6 +210,9 @@ def main(argv=None):
 
     if a.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from mpctsid_tpu.utils import configure_compile_cache, device_info
+    configure_compile_cache()
+    print(json.dumps({"device": device_info()}), file=sys.stderr)
 
     if a.resume and os.path.exists(a.ckpt):
         state = SweepState.load(a.ckpt)

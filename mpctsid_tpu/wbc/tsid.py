@@ -22,7 +22,6 @@ formulation, both deliberate and bounded:
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -66,6 +65,7 @@ def _rpy(R):
     ])
 
 
+@f32_matmuls
 def build_wbc_qp(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
                  extra_base_inertia=None):
     """Returns (H, g, A, l, u, M, h_bias, JcT) for one sample.
@@ -174,7 +174,7 @@ def build_wbc_qp(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
 @f32_matmuls
 def solve_wbc(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
               iters: int = 60, adapt_rounds: int = 3,
-              warm_x=None, warm_y=None, backend: str = "xla",
+              warm_x=None, warm_y=None,
               polish: bool = False, extra_base_inertia=None):
     """One WBC tick: returns (tau(12,), qdd(18,), f(4,3), QPSolution).
 
@@ -182,12 +182,11 @@ def solve_wbc(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
     qp/admm.py _polish the MPC stage's 1e-4 tier uses): measured cold-start
     torque parity vs the oracle improves mean 0.049 -> 0.023 Nm (max 0.29 ->
     0.10) at 60 iters.  Off by default in the cascade: warm-started in-loop
-    solves already sit at mean ~8e-4 Nm, and the polish's LU serializes on
-    TPU."""
+    solves already sit at mean ~8e-4 Nm."""
     H, g, A, l, u, M, h, JcT = build_wbc_qp(
         tree, cfg, q, v, refs, extra_base_inertia=extra_base_inertia)
     # blockinv + in-iteration refinement (qp/admm.py k_solve) matches the LU
-    # inverse's parity on the ridge KKT at MXU-only cost (scripts/diag_wbc_mode:
+    # inverse's parity on the ridge KKT at matmul-only cost (scripts/diag_wbc_mode:
     # mean torque err 0.18 vs 0.15 cold at 60 iters; warm starts in the cascade
     # bring both under the 2e-3 plant-state parity budget)
     # status_tol 0.5: a cold-started fixed-iteration WBC solve legitimately
@@ -195,7 +194,7 @@ def solve_wbc(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
     # the failure policy should only trip on divergence/non-finite solves
     sol = admm_solve(H, g, A, l, u, x0=warm_x, y0=warm_y,
                      iters=iters, adapt_rounds=adapt_rounds, rho=0.1,
-                     status_tol=0.5, backend=backend, polish_kkt=polish)
+                     status_tol=0.5, polish_kkt=polish)
     qdd = sol.x[:NV]
     f = sol.x[NV:]
     tau = M[6:] @ qdd + h[6:] - JcT[6:] @ f

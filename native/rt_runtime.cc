@@ -3,9 +3,9 @@
 // The reference runs its centroidal MPC in a second process and hands the
 // latest completed force plan to the 1 kHz whole-body loop through shared
 // memory with a "new result" flag — one-solve-stale semantics (SURVEY.md §2.2
-// "MPC async wrapper", §3.2).  This library is the TPU-native rebuild of that
+// "MPC async wrapper", §3.2).  This library is the native rebuild of that
 // runtime layer: the hard-real-time pieces that must NOT live in Python (the
-// compute itself lives on the TPU; see mpctsid_tpu/cascade for the fused
+// compute itself lives on the accelerator; see mpctsid_tpu/cascade for the fused
 // device-side cascade used for batched simulation).
 //
 //   * PlanBuffer   — wait-free single-producer/single-consumer double buffer

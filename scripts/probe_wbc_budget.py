@@ -1,11 +1,10 @@
-"""WBC solver-budget trim experiment (round 5): the WBC solve is ~29% of
-the B=1024 cascade period (ROOFLINE.json wbc_solve 4.0 ms/tick x 20).  The
-round-4 MPC budget cut (100/4 -> 80/2) was justified by measured residuals;
-this probes the same for the WBC stage: warm-sequence torque error vs the
-oracle at candidate (iters, adapt_rounds) budgets.
+"""WBC solver-budget trim experiment (round 5): warm-sequence torque error
+vs the oracle at candidate (iters, adapt_rounds) budgets.  The round-4 MPC
+budget cut (100/4 -> 80/2) was justified by measured residuals; this probes
+the same for the WBC stage.
 
-CPU-only (error measurement); the time side comes from the on-chip roofline
-(wbc_solve ms scales ~linearly in iters + rounds x factorization).
+CPU-only (error measurement); the time side needs an on-chip measurement
+(the WBC solve time scales ~linearly in iters + rounds x factorization).
 """
 
 import os
@@ -22,32 +21,11 @@ import jax.numpy as jnp  # noqa: E402
 
 
 def main():
-    from tests.test_wbc_jax import CFG, M, TREE, build64, jax_refs, tau_of, F32
-    import mpctsid_tpu.oracle.cascade as ocas
-    from mpctsid_tpu.oracle.cascade import OracleController
-    from mpctsid_tpu.oracle.sim import SimState, step as o_step
+    from tests.test_wbc_jax import CFG, M, TREE, jax_refs, F32
+    from mpctsid_tpu.oracle.scenarios import wbc_trot_ticks
     from mpctsid_tpu.wbc.tsid import solve_wbc
 
-    captured = []
-    orig = ocas.solve_wbc
-
-    def hook(tree, cfgw, q, v, refs, **kw):
-        out = orig(tree, cfgw, q, v, refs, **kw)
-        captured.append((q.copy(), v.copy(), refs, out[0].copy()))
-        return out
-
-    ocas.solve_wbc = hook
-    q0 = np.zeros(19)
-    q0[2] = M.h_ref
-    q0[6] = 1.0
-    q0[7:] = M.q_stand
-    ctl = OracleController(M, CFG, q0)
-    sim = SimState.init(q0)
-    for _ in range(2 * CFG.cascade.mpc_every):
-        cmd, _ = ctl.compute(sim.q, sim.v)
-        sim, _ = o_step(TREE, sim, cmd.torque(sim.q[7:], sim.v[6:]))
-    ocas.solve_wbc = orig
-    ticks = captured
+    ticks = wbc_trot_ticks(2 * CFG.cascade.mpc_every, M, CFG)
 
     for iters, rounds in [(60, 3), (50, 2), (40, 2), (30, 2), (40, 3),
                           (60, 2)]:

@@ -1,4 +1,4 @@
-"""Unit tests for qp/blockinv.py — the MXU-friendly SPD inversion kernels.
+"""Unit tests for qp/blockinv.py — the matmul-only SPD inversion routines.
 
 Covers the documented failure modes (VERDICT.md round-1 weak #4): accuracy vs
 LU across the condition-number range each variant claims (mass matrices at

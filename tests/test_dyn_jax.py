@@ -1,6 +1,6 @@
 """JAX rigid-body layer vs the MuJoCo-validated numpy oracle (SURVEY.md §4.1).
 
-Fast checks run in f32 (the TPU production dtype) with tolerances sized to the
+Fast checks run in f32 (the production dtype) with tolerances sized to the
 1e-4 control-error budget; one combined x64 test proves exact parity (1e-11)
 with a single jit compile (the unrolled graphs compile slowly under x64 on CPU;
 results land in the persistent compile cache set by conftest.py)."""

@@ -10,13 +10,12 @@ import jax
 import jax.numpy as jnp
 
 from mpctsid_tpu.config import EngineConfig
-from mpctsid_tpu.model.gaits import GAITS, TROT
 from mpctsid_tpu.model.solo12 import SOLO12
 from mpctsid_tpu.mpc.srb import build_mpc_qp as j_build
 from mpctsid_tpu.mpc.srb import reference_rollout as j_rollout
 from mpctsid_tpu.oracle.mpc import reference_rollout as o_rollout
 from mpctsid_tpu.oracle.mpc import solve_mpc as o_solve
-from mpctsid_tpu.oracle.planner import GaitScheduler, plan_footsteps_horizon
+from mpctsid_tpu.oracle.scenarios import mpc_scenario as scenario
 from mpctsid_tpu.qp.admm import admm_solve
 
 M = SOLO12
@@ -28,23 +27,6 @@ _solve = jax.jit(lambda P, q, A, l, u: admm_solve(
     P, q, A, l, u, iters=100, adapt_rounds=4, rho=0.1, polish_kkt=True))
 _solve_batch = jax.jit(jax.vmap(lambda P, q, A, l, u: admm_solve(
     P, q, A, l, u, iters=100, adapt_rounds=4, rho=0.1, polish_kkt=True)))
-
-
-def scenario(seed):
-    r = np.random.default_rng(seed)
-    x0 = np.zeros(12)
-    x0[2] = M.h_ref + r.normal() * 0.01
-    x0[6:8] = r.normal(size=2) * 0.2
-    x0[3:5] = r.normal(size=2) * 0.05
-    vc = np.array([r.uniform(-0.5, 0.5), r.uniform(-0.2, 0.2),
-                   r.uniform(-0.5, 0.5)])
-    g = GaitScheduler(TROT, phase=int(r.integers(0, 16)))
-    feet0 = M.shoulder_offsets.copy()
-    feet0[:, 2] = 0.0
-    fsteps, _ = plan_footsteps_horizon(M, CFG.mpc, CFG.cascade, g, x0, vc, feet0)
-    cont = g.horizon(16)
-    xref = o_rollout(M, CFG.mpc, x0, vc)
-    return x0, xref, fsteps, cont
 
 
 def to_dev(x0, xref, fsteps, cont):

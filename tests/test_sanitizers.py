@@ -63,7 +63,7 @@ def test_qp_solution_finite_on_perturbed_batch():
     """Random (valid) QPs through the production solver: finite outputs and
     coherent status across the batch."""
     from mpctsid_tpu.qp.admm import admm_solve
-    from tests.test_pallas_admm import random_qp
+    from tests.test_admm import random_qp
 
     qps = [random_qp(s) for s in range(8)]
     Ps, qs, As, ls, us = [jnp.stack([qp[i] for qp in qps]) for i in range(5)]

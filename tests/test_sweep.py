@@ -29,7 +29,7 @@ def test_scenario_params_chunk_invariant():
 
 
 def test_interrupt_resume_bitwise(tmp_path):
-    ckpt = str(tmp_path / "sweep.msgpack")
+    ckpt = str(tmp_path / "sweep.npz")
 
     # uninterrupted reference
     ref = run_sweep(SweepState.fresh(SEED, TOTAL, PERIODS), CHUNK,
@@ -56,6 +56,23 @@ def test_interrupt_resume_bitwise(tmp_path):
     s = summarize(resumed)
     assert s["scenarios"] == TOTAL
     assert 0.0 <= s["upright_frac"] <= 1.0
+
+
+def test_checkpoint_npz_roundtrip():
+    """A checkpoint restores every field, the unfinished NaN tail included,
+    as writable arrays."""
+    st = SweepState.fresh(SEED, TOTAL, PERIODS)
+    st.cursor = 5
+    for i, k in enumerate(METRIC_KEYS):
+        st.metrics[k][:5] = np.arange(5) + i
+    back = SweepState.from_bytes(st.to_bytes())
+    assert (back.seed, back.total, back.cursor, back.n_periods) == \
+        (SEED, TOTAL, 5, PERIODS)
+    assert sorted(back.metrics) == sorted(METRIC_KEYS)
+    for k in METRIC_KEYS:
+        np.testing.assert_array_equal(back.metrics[k], st.metrics[k])
+        assert back.metrics[k].dtype == np.float32
+    back.metrics["upright"][5] = 1.0       # resume writes into the arrays
 
 
 def test_tail_padding(tmp_path):

@@ -33,32 +33,8 @@ REF_FIELDS = ["contacts", "f_mpc", "foot_pos_ref", "foot_vel_ref",
 @pytest.fixture(scope="module")
 def ticks():
     """(q, v, refs, oracle_tau) for 40 trot ticks from the oracle cascade."""
-    import mpctsid_tpu.oracle.cascade as ocas
-    from mpctsid_tpu.oracle.cascade import OracleController
-    from mpctsid_tpu.oracle.sim import SimState, step as o_step
-
-    captured = []
-    orig = ocas.solve_wbc
-
-    def hook(tree, cfgw, q, v, refs, **kw):
-        out = orig(tree, cfgw, q, v, refs, **kw)
-        captured.append((q.copy(), v.copy(), refs, out[0].copy()))
-        return out
-
-    ocas.solve_wbc = hook
-    try:
-        q0 = np.zeros(19)
-        q0[2] = M.h_ref
-        q0[6] = 1.0
-        q0[7:] = M.q_stand
-        ctl = OracleController(M, CFG, q0)
-        sim = SimState.init(q0)
-        for _ in range(2 * CFG.cascade.mpc_every):
-            cmd, _ = ctl.compute(sim.q, sim.v)
-            sim, _ = o_step(TREE, sim, cmd.torque(sim.q[7:], sim.v[6:]))
-    finally:
-        ocas.solve_wbc = orig
-    return captured
+    from mpctsid_tpu.oracle.scenarios import wbc_trot_ticks
+    return wbc_trot_ticks(2 * CFG.cascade.mpc_every, M, CFG)
 
 
 def jax_refs(refs, dtype=F32):
